@@ -1,9 +1,9 @@
 // Native EuRoC image loader: libpng grayscale decode + threaded prefetch
-// ring. TPU-native equivalent of the reference's dataloader IO path
+// ring. Native equivalent of the reference's dataloader IO path
 // (ref: /root/reference/gmmloc/src/utils/dataloader.cpp:53-116 — OpenCV
 // imread per frame) and the per-frame ephemeral decode threads
 // (ref: gmmloc.cpp:241-249). Exposed to Python via ctypes
-// (gmmloc_tpu/pipeline/dataloader.py); the index/CSV parse stays on the
+// (gmmloc/pipeline/dataloader.py); the index/CSV parse stays on the
 // host in Python where it is trivial.
 //
 // Build: make -C native  (produces libgmmloc_io.so)

@@ -1,7 +1,7 @@
-// Native runtime support library for gmmloc-tpu.
+// Native runtime support library for gmmloc.
 //
 // Mirrors the native roles of the reference's C++ runtime that sit outside
-// the TPU compute path (SURVEY.md §2): the varint-framed protobuf GMM map
+// the device compute path (SURVEY.md §2): the varint-framed protobuf GMM map
 // parser (ref: gmmloc/src/utils/protobuf_utils.cpp + gmm_utils.cpp
 // loadGMMModel) and portable popcount Hamming kernels used as host-side
 // fallbacks for the dataloader/bootstrap paths.

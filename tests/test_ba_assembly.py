@@ -12,12 +12,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gmmloc_tpu.config import euroc_v1_config
-from gmmloc_tpu.eval import synthetic
-from gmmloc_tpu.gmm import mixture
-from gmmloc_tpu.pipeline.system import GMMLocSystem
+from gmmloc.config import euroc_v1_config
+from gmmloc.eval import synthetic
+from gmmloc.gmm import mixture
+from gmmloc.pipeline.system import GMMLocSystem
+from tests import assets
 
-HAVE_ASSETS = os.path.exists(synthetic.V1_GMM)
+HAVE_ASSETS = assets.HAVE_ASSETS
 
 
 def _host_assemble(loc, kf0):
@@ -104,12 +105,12 @@ def test_device_assembly_matches_host():
         tracking=dataclasses.replace(cfg.tracking, velocity_damping=0.9)
     )
     fe, ts, q_wc, t_wc = synthetic.make_sequence(
-        cfg, n_frames=220, stride=1, n_landmarks=12000,
+        cfg, **assets.EUROC_V1_01, n_frames=220, stride=1, n_landmarks=12000,
         disp_noise=0.1, pixel_noise=0.25, drop_frac=0.1,
     )
     START, N = 150, 60
     gmap = mixture.load(
-        synthetic.V1_GMM, pad_to=cfg.caps.gmm_components_pad,
+        assets.V1_GMM, pad_to=cfg.caps.gmm_components_pad,
         neighbor_dist_thresh=cfg.gmm.neighbor_dist_thresh,
         neighbor_cap=cfg.gmm.neighbor_cap,
     )
@@ -129,7 +130,7 @@ def test_device_assembly_matches_host():
     assert len(h["pts"]) > 100
 
     # device assembly of the same window
-    from gmmloc_tpu.mapping import ba_assemble
+    from gmmloc.mapping import ba_assemble
 
     dv = loc.dev_world
     dv.sync()
@@ -191,17 +192,17 @@ def test_ba_device_assembly_e2e_parity():
             tracking=dataclasses.replace(cfg.tracking, velocity_damping=0.9),
         )
         fe, ts, q_wc, t_wc = synthetic.make_sequence(
-            cfg, n_frames=220, stride=1, n_landmarks=12000,
+            cfg, **assets.EUROC_V1_01, n_frames=220, stride=1, n_landmarks=12000,
             disp_noise=0.1, pixel_noise=0.25, drop_frac=0.1,
         )
         START, N = 150, 45
         gmap = mixture.load(
-            synthetic.V1_GMM, pad_to=cfg.caps.gmm_components_pad,
+            assets.V1_GMM, pad_to=cfg.caps.gmm_components_pad,
             neighbor_dist_thresh=cfg.gmm.neighbor_dist_thresh,
             neighbor_cap=cfg.gmm.neighbor_cap,
         )
         s = GMMLocSystem(cfg, gmap)
-        from gmmloc_tpu.mapping.map_state import _inverse
+        from gmmloc.mapping.map_state import _inverse
 
         es = []
         frames = []

@@ -4,8 +4,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from gmmloc_tpu.config import CameraConfig
-from gmmloc_tpu.geometry import camera as cam_mod
+from gmmloc.config import CameraConfig
+from gmmloc.geometry import camera as cam_mod
 
 CAM = cam_mod.CameraParams.from_config(CameraConfig())
 

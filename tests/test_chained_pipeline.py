@@ -10,34 +10,21 @@ and temporal points are synthesized from the device pose chain.
 """
 
 import dataclasses
-import os
 
 import numpy as np
 import pytest
 
-from gmmloc_tpu.config import euroc_v1_config
-from gmmloc_tpu.eval import synthetic
-from gmmloc_tpu.gmm import mixture
-from gmmloc_tpu.mapping.map_state import _inverse
-from gmmloc_tpu.pipeline.system import GMMLocSystem
-
-HAVE_ASSETS = os.path.exists(synthetic.V1_GMM)
+from gmmloc.config import euroc_v1_config
+from gmmloc.mapping.map_state import _inverse
+from gmmloc.pipeline.system import GMMLocSystem
+from tests import assets
 
 
-def _run(depth, n=60):
+def _run(depth, kind, n=60):
     cfg = euroc_v1_config()
     cfg = cfg.replace(tracking=dataclasses.replace(
         cfg.tracking, velocity_damping=0.9, pipeline_depth=depth))
-    fe, ts, q_wc, t_wc = synthetic.make_sequence(
-        cfg, n_frames=300, stride=1, n_landmarks=20000,
-        disp_noise=0.1, pixel_noise=0.25, drop_frac=0.1,
-    )
-    START = 150
-    gmap = mixture.load(
-        synthetic.V1_GMM, pad_to=cfg.caps.gmm_components_pad,
-        neighbor_dist_thresh=cfg.gmm.neighbor_dist_thresh,
-        neighbor_cap=cfg.gmm.neighbor_cap,
-    )
+    gmap, fe, ts, q_wc, t_wc, START = assets.v1_run(cfg, kind, n)
     s = GMMLocSystem(cfg, gmap)
     frames = []
     for i in range(n):
@@ -60,9 +47,9 @@ def _run(depth, n=60):
     return s, done, errs
 
 
-@pytest.mark.skipif(not HAVE_ASSETS, reason="reference assets absent")
-def test_chained_pipeline_tracks():
-    s, done, errs = _run(depth=4)
+@pytest.mark.parametrize("kind", assets.SOURCES)
+def test_chained_pipeline_tracks(kind):
+    s, done, errs = _run(depth=4, kind=kind)
     # chained mode forces kf-cadence map refresh + requires device world
     assert s._depth == 4
     assert s.cfg.tracking.fused_map_refresh == "kf"
@@ -75,12 +62,12 @@ def test_chained_pipeline_tracks():
     assert s.tracker._chain is not None or s._pendq == type(s._pendq)()
 
 
-@pytest.mark.skipif(not HAVE_ASSETS, reason="reference assets absent")
-def test_chained_matches_depth1_accuracy():
+@pytest.mark.parametrize("kind", assets.SOURCES)
+def test_chained_matches_depth1_accuracy(kind):
     """Drained trajectories of depth-4 vs depth-1 agree to sub-cm on a
     clean slice (bounded staleness, not bit-equality)."""
-    _, done1, errs1 = _run(depth=1)
-    _, done4, errs4 = _run(depth=4)
+    _, done1, errs1 = _run(depth=1, kind=kind)
+    _, done4, errs4 = _run(depth=4, kind=kind)
     # depth-4 surfaces up to depth more stats through flush as a single
     # return — compare the tracked POSES, not the stat count
     assert done4 >= done1 - 4

@@ -2,10 +2,10 @@
 
 import numpy as np
 
-from gmmloc_tpu.pipeline import checkpoint
+from gmmloc.pipeline import checkpoint
 from tests.test_world_model import make_test_frame, small_cfg
 
-from gmmloc_tpu.mapping import map_state as ms
+from gmmloc.mapping import map_state as ms
 
 
 def test_checkpoint_roundtrip(tmp_path):
@@ -47,32 +47,26 @@ def test_html_viewer_export(tmp_path):
 
     import numpy as np
 
-    from gmmloc_tpu.config import euroc_v1_config
-    from gmmloc_tpu.eval import synthetic
-    from gmmloc_tpu.gmm import mixture
-    from gmmloc_tpu.pipeline import html_viewer
-    from gmmloc_tpu.pipeline.system import GMMLocSystem
-    from gmmloc_tpu.utils import proto
+    from gmmloc.config import euroc_v1_config
+    from gmmloc.eval import synthetic
+    from gmmloc.gmm import mixture
+    from gmmloc.pipeline import html_viewer
+    from gmmloc.pipeline.system import GMMLocSystem
 
     cfg = euroc_v1_config()
     cfg = cfg.replace(
         tracking=dataclasses.replace(cfg.tracking, velocity_damping=0.9)
     )
+    room = synthetic.seeded_room(25, seed=0, n_components=400)
     fe, ts, q_wc, t_wc = synthetic.make_sequence(
-        cfg, n_frames=180, stride=1, n_landmarks=20000,
-        disp_noise=0.1, pixel_noise=0.25, drop_frac=0.1,
+        cfg, gmm=(room.means, room.covs), trajectory=room.trajectory,
+        n_landmarks=12000, disp_noise=0.1, pixel_noise=0.25, drop_frac=0.1,
     )
-    gmap = mixture.load(
-        synthetic.V1_GMM, pad_to=cfg.caps.gmm_components_pad,
-        neighbor_dist_thresh=cfg.gmm.neighbor_dist_thresh,
-        neighbor_cap=cfg.gmm.neighbor_cap,
-    )
-    s = GMMLocSystem(cfg, gmap)
+    s = GMMLocSystem(cfg, mixture.for_config(room.means, room.covs, cfg))
     for i in range(25):
-        fi = 150 + i
-        f = fe.make_frame(i, ts[fi], q_wc[fi], t_wc[fi])
-        s.step(f, q_wc[fi], t_wc[fi])
-    means, covs, _, _ = proto.load_gmm_file(synthetic.V1_GMM)
+        f = fe.make_frame(i, ts[i], q_wc[i], t_wc[i])
+        s.step(f, q_wc[i], t_wc[i])
+    means, covs = room.means, room.covs
     out = str(tmp_path / "map.html")
     html_viewer.export_html(s.world, out, gmm={"means": means, "covs": covs})
     text = open(out).read()

@@ -9,11 +9,12 @@ import os
 
 import pytest
 
-from gmmloc_tpu.config import euroc_v1_config
-from gmmloc_tpu.eval import synthetic
-from gmmloc_tpu.utils.control import _Control, control
+from gmmloc.config import euroc_v1_config
+from gmmloc.eval import synthetic
+from gmmloc.utils.control import _Control, control
+from tests import assets
 
-HAVE_ASSETS = os.path.exists(synthetic.V1_GMM)
+HAVE_ASSETS = assets.HAVE_ASSETS
 
 
 def test_control_flag_semantics():
@@ -36,12 +37,12 @@ def test_control_flag_semantics():
 def test_stop_breaks_main_loop():
     """With stop requested, run() exits before tracking any frame
     (ref: gmmloc.cpp:130 `if (global::stop) break;`)."""
-    from gmmloc_tpu.gmm import mixture
-    from gmmloc_tpu.pipeline.system import GMMLocSystem
+    from gmmloc.gmm import mixture
+    from gmmloc.pipeline.system import GMMLocSystem
 
     cfg = euroc_v1_config()
     gmap = mixture.load(
-        synthetic.V1_GMM, pad_to=cfg.caps.gmm_components_pad,
+        assets.V1_GMM, pad_to=cfg.caps.gmm_components_pad,
         neighbor_dist_thresh=cfg.gmm.neighbor_dist_thresh,
         neighbor_cap=cfg.gmm.neighbor_cap,
     )

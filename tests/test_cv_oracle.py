@@ -17,11 +17,11 @@ import pytest
 
 cv2 = pytest.importorskip("cv2")
 
-from gmmloc_tpu.config import euroc_v1_config
-from gmmloc_tpu.eval import synthetic
-from gmmloc_tpu.eval.image_synthetic import SpriteRenderer
-from gmmloc_tpu.features import detect, matching
-from gmmloc_tpu.mapping.map_state import _quat_to_mat
+from gmmloc.config import euroc_v1_config
+from gmmloc.eval import synthetic
+from gmmloc.eval.image_synthetic import SpriteRenderer
+from gmmloc.features import detect, matching
+from gmmloc.mapping.map_state import _quat_to_mat
 
 import jax.numpy as jnp
 
@@ -73,8 +73,7 @@ def test_fast_detector_repeatability_vs_opencv(stereo_world):
     keypoint on the same image (level 0)."""
     cfg, _, img0, *_ = stereo_world
     det = detect.ORBDetector(img0.shape[0], img0.shape[1],
-                             num_features=800, num_levels=1,
-                             use_pallas_fast=False)
+                             num_features=800, num_levels=1)
     d = det(jnp.asarray(img0, jnp.float32))
     ours = np.asarray(d.uv)[np.asarray(d.valid)]
 
@@ -114,8 +113,7 @@ def test_match_rate_vs_opencv_orb(stereo_world):
     cfg, _, img0, img1, pose0, pose1, world = stereo_world
 
     det = detect.ORBDetector(img0.shape[0], img0.shape[1],
-                             num_features=800, num_levels=4,
-                             use_pallas_fast=False)
+                             num_features=800, num_levels=4)
     d0 = det(jnp.asarray(img0, jnp.float32))
     d1 = det(jnp.asarray(img1, jnp.float32))
     m, _ = matching.mutual_best_match(
@@ -158,8 +156,7 @@ def test_descriptor_distance_separation(stereo_world):
     matched mode and the matcher loses discrimination."""
     cfg, _, img0, img1, pose0, pose1, world = stereo_world
     det = detect.ORBDetector(img0.shape[0], img0.shape[1],
-                             num_features=800, num_levels=4,
-                             use_pallas_fast=False)
+                             num_features=800, num_levels=4)
     d0 = det(jnp.asarray(img0, jnp.float32))
     d1 = det(jnp.asarray(img1, jnp.float32))
     m, md = matching.mutual_best_match(

@@ -17,12 +17,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gmmloc_tpu.config import euroc_v1_config
-from gmmloc_tpu.features import matching
-from gmmloc_tpu.geometry import camera as cam_mod
-from gmmloc_tpu.mapping import map_state as ms
-from gmmloc_tpu.mapping.device_world import DeviceWorld
-from gmmloc_tpu.tracking.frame import make_frame
+from gmmloc.config import euroc_v1_config
+from gmmloc.features import matching
+from gmmloc.geometry import camera as cam_mod
+from gmmloc.mapping import map_state as ms
+from gmmloc.mapping.device_world import DeviceWorld
+from gmmloc.tracking.frame import make_frame
 
 
 def _mk_world(cfg, rng, n_kfs=4, pts_per_kf=120):
@@ -105,8 +105,8 @@ def test_tri_gather_equals_upload(rng):
     free1 = w.kf_feat_valid[kf1] & (w.kf_obs_point[kf1] < 0)
     free2 = w.kf_feat_valid[kf2]
     # fundamental matrices via the host helper in localization
-    from gmmloc_tpu.mapping.localization import Localization
-    from gmmloc_tpu.mapping.association import GMMAssociator
+    from gmmloc.mapping.localization import Localization
+    from gmmloc.mapping.association import GMMAssociator
 
     K = np.array([[cam.fx, 0, cam.cx], [0, cam.fy, cam.cy], [0, 0, 1.0]])
     fm, ep = [], []
@@ -162,9 +162,9 @@ def test_fuse_device_equals_jobs(rng):
         )
         r = np.random.default_rng(7)  # same world both times
         cam, w, kfs, pids, pw = _mk_world(cfg, r)
-        from gmmloc_tpu.gmm import mixture
-        from gmmloc_tpu.mapping.association import GMMAssociator
-        from gmmloc_tpu.mapping.localization import Localization
+        from gmmloc.gmm import mixture
+        from gmmloc.mapping.association import GMMAssociator
+        from gmmloc.mapping.localization import Localization
 
         gmap = mixture.from_arrays(
             np.array([[0.0, 0, 6.0]]), np.tile(np.eye(3) * 0.04, (1, 1, 1)),

@@ -15,13 +15,12 @@ import os
 import numpy as np
 import pytest
 
-from gmmloc_tpu.config import euroc_v1_config
-from gmmloc_tpu.eval import synthetic
-from gmmloc_tpu.pipeline.dataloader import EuRoCDataloader
+from gmmloc.config import euroc_v1_config
+from gmmloc.eval import synthetic
+from gmmloc.pipeline.dataloader import EuRoCDataloader
+from tests import assets
 
-HAVE_ASSETS = os.path.exists(synthetic.V1_GMM) and os.path.exists(
-    f"{synthetic.GT_DIR}/V1_01_easy.txt"
-)
+HAVE_ASSETS = assets.HAVE_ASSETS
 
 N_FRAMES = 8
 START = 150
@@ -46,11 +45,11 @@ def _write_asl_tree(root, imgs_l, imgs_r, ts):
 
 @pytest.mark.skipif(not HAVE_ASSETS, reason="reference assets absent")
 def test_disk_pipeline_matches_in_memory(tmp_path):
-    from gmmloc_tpu.eval.image_synthetic import SpriteRenderer
-    from gmmloc_tpu.gmm import mixture
-    from gmmloc_tpu.pipeline.frontend import ImageFrontend
-    from gmmloc_tpu.pipeline.system import GMMLocSystem
-    from gmmloc_tpu.utils import proto
+    from gmmloc.eval.image_synthetic import SpriteRenderer
+    from gmmloc.gmm import mixture
+    from gmmloc.pipeline.frontend import ImageFrontend
+    from gmmloc.pipeline.system import GMMLocSystem
+    from gmmloc.utils import proto
 
     cfg = euroc_v1_config()
     cfg = cfg.replace(
@@ -60,9 +59,9 @@ def test_disk_pipeline_matches_in_memory(tmp_path):
         tracking=dataclasses.replace(cfg.tracking, velocity_damping=0.9),
     )
     ts, q_wc, t_wc = synthetic.load_gt_trajectory(
-        f"{synthetic.GT_DIR}/V1_01_easy.txt"
+        f"{assets.GT_DIR}/V1_01_easy.txt"
     )
-    means, covs, _, _ = proto.load_gmm_file(synthetic.V1_GMM)
+    means, covs, _, _ = proto.load_gmm_file(assets.V1_GMM)
     world = synthetic.sample_world_from_gmm(means, covs, n_landmarks=6000)
     renderer = SpriteRenderer(world, cfg)
 
@@ -85,7 +84,7 @@ def test_disk_pipeline_matches_in_memory(tmp_path):
         np.testing.assert_array_equal(dr.astype(np.uint8), imgs_r[i])
 
     gmap = mixture.load(
-        synthetic.V1_GMM, pad_to=cfg.caps.gmm_components_pad,
+        assets.V1_GMM, pad_to=cfg.caps.gmm_components_pad,
         neighbor_dist_thresh=cfg.gmm.neighbor_dist_thresh,
         neighbor_cap=cfg.gmm.neighbor_cap,
     )

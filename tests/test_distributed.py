@@ -19,7 +19,7 @@ _WORKER = textwrap.dedent(
     """
     import json, os, sys
     sys.path.insert(0, %r)
-    from gmmloc_tpu.parallel import distributed as dist
+    from gmmloc.parallel import distributed as dist
 
     pid, nproc = dist.init_distributed(local_device_count=2)
     import jax
@@ -43,10 +43,10 @@ _WORKER = textwrap.dedent(
     assert abs(total - 28.0) < 1e-6, total
 
     # cross-process sharded local BA == single-process result
-    from gmmloc_tpu.config import CameraConfig
-    from gmmloc_tpu.geometry import camera as cam_mod
-    from gmmloc_tpu.solver import local_ba
-    from gmmloc_tpu.parallel import sharding as sh
+    from gmmloc.config import CameraConfig
+    from gmmloc.geometry import camera as cam_mod
+    from gmmloc.solver import local_ba
+    from gmmloc.parallel import sharding as sh
 
     cam = cam_mod.CameraParams.from_config(CameraConfig())
     rng = np.random.default_rng(0)
@@ -117,7 +117,7 @@ def test_two_process_distributed(tmp_path):
             GMMLOC_COORDINATOR="127.0.0.1:9977",
             GMMLOC_NUM_PROCESSES="2",
             GMMLOC_PROCESS_ID=str(i),
-            JAX_PLATFORMS_OVERRIDE="cpu",
+            JAX_PLATFORMS="cpu",
         )
         procs.append(
             subprocess.Popen(

@@ -12,9 +12,9 @@ import dataclasses
 import numpy as np
 import pytest
 
-from gmmloc_tpu.config import euroc_v1_config
-from gmmloc_tpu.eval import synthetic
-from gmmloc_tpu.pipeline.frontend import ImageFrontend
+from gmmloc.config import euroc_v1_config
+from gmmloc.eval import synthetic
+from gmmloc.pipeline.frontend import ImageFrontend
 
 
 @pytest.fixture(scope="module")
@@ -27,7 +27,7 @@ def stereo_pair(rng_module=None):
     pts = np.stack([
         rng.uniform(-4, 4, n), rng.uniform(-3, 3, n), rng.uniform(2.0, 10.0, n),
     ], -1)
-    from gmmloc_tpu.eval.image_synthetic import SpriteRenderer
+    from gmmloc.eval.image_synthetic import SpriteRenderer
 
     world = synthetic.SyntheticWorld(
         landmarks=pts,

@@ -14,12 +14,13 @@ import os
 import numpy as np
 import pytest
 
-from gmmloc_tpu.config import euroc_v1_config
-from gmmloc_tpu.eval import synthetic
-from gmmloc_tpu.gmm import mixture
-from gmmloc_tpu.pipeline.system import GMMLocSystem
+from gmmloc.config import euroc_v1_config
+from gmmloc.eval import synthetic
+from gmmloc.gmm import mixture
+from gmmloc.pipeline.system import GMMLocSystem
+from tests import assets
 
-HAVE_ASSETS = os.path.exists(synthetic.V1_GMM)
+HAVE_ASSETS = assets.HAVE_ASSETS
 
 
 @pytest.mark.skipif(not HAVE_ASSETS, reason="reference assets absent")
@@ -29,12 +30,12 @@ def test_fused_assoc_matches_host_chain():
         tracking=dataclasses.replace(cfg.tracking, velocity_damping=0.9)
     )
     fe, ts, q_wc, t_wc = synthetic.make_sequence(
-        cfg, n_frames=220, stride=1, n_landmarks=12000,
+        cfg, **assets.EUROC_V1_01, n_frames=220, stride=1, n_landmarks=12000,
         disp_noise=0.1, pixel_noise=0.25, drop_frac=0.1,
     )
     START, N = 150, 30
     gmap = mixture.load(
-        synthetic.V1_GMM, pad_to=cfg.caps.gmm_components_pad,
+        assets.V1_GMM, pad_to=cfg.caps.gmm_components_pad,
         neighbor_dist_thresh=cfg.gmm.neighbor_dist_thresh,
         neighbor_cap=cfg.gmm.neighbor_cap,
     )
@@ -58,7 +59,7 @@ def test_fused_assoc_matches_host_chain():
     sel = np.where(feat_ok & has_cand)[0]
     assert len(sel) > 50, "degenerate fixture: too few checkable features"
     # unproject (same math as create_map_points_from_stereo)
-    from gmmloc_tpu.mapping import map_state as ms
+    from gmmloc.mapping import map_state as ms
 
     q_wc_kf, t_wc_kf = ms._inverse(w.kf_q[kf], w.kf_t[kf])
     R_wc = ms._quat_to_mat(q_wc_kf)

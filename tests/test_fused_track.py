@@ -3,9 +3,10 @@
 import jax.numpy as jnp
 import numpy as np
 
-from gmmloc_tpu.config import CameraConfig, euroc_v1_config
-from gmmloc_tpu.geometry import camera as cam_mod, se3
-from gmmloc_tpu.tracking import fused
+from gmmloc.config import CameraConfig, euroc_v1_config
+from gmmloc.geometry import camera as cam_mod, se3
+from gmmloc.tracking import fused
+from tests import assets
 
 CAM = cam_mod.CameraParams.from_config(CameraConfig())
 
@@ -82,11 +83,11 @@ def test_fused_track_system_equivalence():
     import dataclasses
     import os
     import pytest
-    from gmmloc_tpu.eval import ate, synthetic
-    from gmmloc_tpu.gmm import mixture
-    from gmmloc_tpu.pipeline.system import GMMLocSystem
+    from gmmloc.eval import ate, synthetic
+    from gmmloc.gmm import mixture
+    from gmmloc.pipeline.system import GMMLocSystem
 
-    if not os.path.exists(synthetic.V1_GMM):
+    if not assets.HAVE_ASSETS:
         pytest.skip("reference assets absent")
 
     base = euroc_v1_config()
@@ -94,7 +95,7 @@ def test_fused_track_system_equivalence():
         tracking=dataclasses.replace(base.tracking, velocity_damping=0.9)
     )
     gmap = mixture.load(
-        synthetic.V1_GMM, pad_to=base.caps.gmm_components_pad,
+        assets.V1_GMM, pad_to=base.caps.gmm_components_pad,
         neighbor_dist_thresh=base.gmm.neighbor_dist_thresh,
         neighbor_cap=base.gmm.neighbor_cap,
     )
@@ -105,7 +106,7 @@ def test_fused_track_system_equivalence():
             tracking=dataclasses.replace(base.tracking, use_fused_track=use_fused)
         )
         fe, ts, q_wc, t_wc = synthetic.make_sequence(
-            cfg, n_frames=300, stride=1, n_landmarks=20000,
+            cfg, **assets.EUROC_V1_01, n_frames=300, stride=1, n_landmarks=20000,
             disp_noise=0.1, pixel_noise=0.25, drop_frac=0.1,
         )
         s = GMMLocSystem(cfg, gmap)
@@ -134,11 +135,11 @@ def test_packed_matches_unpacked():
     import dataclasses
     import os
     import pytest
-    from gmmloc_tpu.eval import synthetic
-    from gmmloc_tpu.gmm import mixture
-    from gmmloc_tpu.pipeline.system import GMMLocSystem
+    from gmmloc.eval import synthetic
+    from gmmloc.gmm import mixture
+    from gmmloc.pipeline.system import GMMLocSystem
 
-    if not os.path.exists(synthetic.V1_GMM):
+    if not assets.HAVE_ASSETS:
         pytest.skip("reference assets absent")
 
     base = euroc_v1_config()
@@ -148,7 +149,7 @@ def test_packed_matches_unpacked():
         )
     )
     gmap = mixture.load(
-        synthetic.V1_GMM, pad_to=base.caps.gmm_components_pad,
+        assets.V1_GMM, pad_to=base.caps.gmm_components_pad,
         neighbor_dist_thresh=base.gmm.neighbor_dist_thresh,
         neighbor_cap=base.gmm.neighbor_cap,
     )
@@ -158,7 +159,7 @@ def test_packed_matches_unpacked():
             tracking=dataclasses.replace(base.tracking, fused_packed_io=packed)
         )
         fe, ts, q_wc, t_wc = synthetic.make_sequence(
-            cfg, n_frames=220, stride=1, n_landmarks=20000,
+            cfg, **assets.EUROC_V1_01, n_frames=220, stride=1, n_landmarks=20000,
             disp_noise=0.1, pixel_noise=0.25, drop_frac=0.1,
         )
         s = GMMLocSystem(cfg, gmap)
@@ -186,11 +187,11 @@ def test_kf_refresh_ate_parity():
     import dataclasses
     import os
     import pytest
-    from gmmloc_tpu.eval import ate, synthetic
-    from gmmloc_tpu.gmm import mixture
-    from gmmloc_tpu.pipeline.system import GMMLocSystem
+    from gmmloc.eval import ate, synthetic
+    from gmmloc.gmm import mixture
+    from gmmloc.pipeline.system import GMMLocSystem
 
-    if not os.path.exists(synthetic.V1_GMM):
+    if not assets.HAVE_ASSETS:
         pytest.skip("reference assets absent")
 
     base = euroc_v1_config()
@@ -200,7 +201,7 @@ def test_kf_refresh_ate_parity():
         )
     )
     gmap = mixture.load(
-        synthetic.V1_GMM, pad_to=base.caps.gmm_components_pad,
+        assets.V1_GMM, pad_to=base.caps.gmm_components_pad,
         neighbor_dist_thresh=base.gmm.neighbor_dist_thresh,
         neighbor_cap=base.gmm.neighbor_cap,
     )
@@ -211,7 +212,7 @@ def test_kf_refresh_ate_parity():
             tracking=dataclasses.replace(base.tracking, fused_map_refresh=mode)
         )
         fe, ts, q_wc, t_wc = synthetic.make_sequence(
-            cfg, n_frames=220, stride=1, n_landmarks=20000,
+            cfg, **assets.EUROC_V1_01, n_frames=220, stride=1, n_landmarks=20000,
             disp_noise=0.1, pixel_noise=0.25, drop_frac=0.1,
         )
         s = GMMLocSystem(cfg, gmap)

@@ -13,14 +13,15 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gmmloc_tpu.config import euroc_v1_config
-from gmmloc_tpu.eval import synthetic
-from gmmloc_tpu.gmm import mixture
-from gmmloc_tpu.mapping.map_state import _inverse
-from gmmloc_tpu.mapping.tri_kernel import _dlt_null
-from gmmloc_tpu.pipeline.system import GMMLocSystem
+from gmmloc.config import euroc_v1_config
+from gmmloc.eval import synthetic
+from gmmloc.gmm import mixture
+from gmmloc.mapping.map_state import _inverse
+from gmmloc.mapping.tri_kernel import _dlt_null
+from gmmloc.pipeline.system import GMMLocSystem
+from tests import assets
 
-HAVE_ASSETS = os.path.exists(synthetic.V1_GMM)
+HAVE_ASSETS = assets.HAVE_ASSETS
 
 
 def _make_dlt_systems(rng, n, noise_px=0.5):
@@ -96,12 +97,12 @@ def test_fused_tri_e2e_parity():
             tracking=dataclasses.replace(cfg.tracking, velocity_damping=0.9),
         )
         fe, ts, q_wc, t_wc = synthetic.make_sequence(
-            cfg, n_frames=220, stride=1, n_landmarks=12000,
+            cfg, **assets.EUROC_V1_01, n_frames=220, stride=1, n_landmarks=12000,
             disp_noise=0.1, pixel_noise=0.25, drop_frac=0.1,
         )
         START, N = 150, 45
         gmap = mixture.load(
-            synthetic.V1_GMM, pad_to=cfg.caps.gmm_components_pad,
+            assets.V1_GMM, pad_to=cfg.caps.gmm_components_pad,
             neighbor_dist_thresh=cfg.gmm.neighbor_dist_thresh,
             neighbor_cap=cfg.gmm.neighbor_cap,
         )

@@ -7,13 +7,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gmmloc_tpu.config import CameraConfig
-from gmmloc_tpu.geometry import camera as cam_mod
-from gmmloc_tpu.geometry import se3
-from gmmloc_tpu.gmm import gaussian, mixture, render
-from gmmloc_tpu.utils import proto
+from gmmloc.config import CameraConfig
+from gmmloc.geometry import camera as cam_mod
+from gmmloc.geometry import se3
+from gmmloc.gmm import gaussian, mixture, render
+from gmmloc.utils import proto
+from tests import assets
 
-V1_GMM = "/root/reference/gmmloc_ros/data/map/v1.gmm"
 CAM = cam_mod.CameraParams.from_config(CameraConfig())
 
 
@@ -34,9 +34,9 @@ def make_random_components(rng, k=64):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.skipif(not os.path.exists(V1_GMM), reason="reference asset absent")
+@pytest.mark.skipif(not assets.HAVE_ASSETS, reason="EuRoC map absent (GMMLOC_EUROC_DATA)")
 def test_load_real_v1_map():
-    means, covs, deg, sal = proto.load_gmm_file(V1_GMM)
+    means, covs, deg, sal = proto.load_gmm_file(assets.V1_GMM)
     assert means.shape == (3299, 3)  # SURVEY.md: v1 = 3299 components
     assert covs.shape == (3299, 3, 3)
     # covariances must be symmetric PSD

@@ -4,10 +4,10 @@ import time
 
 import numpy as np
 
-from gmmloc_tpu.config import euroc_v1_config
-from gmmloc_tpu.mapping.map_state import MapState
-from gmmloc_tpu.pipeline.live_viewer import LiveViewer
-from gmmloc_tpu.tracking.frame import make_frame
+from gmmloc.config import euroc_v1_config
+from gmmloc.mapping.map_state import MapState
+from gmmloc.pipeline.live_viewer import LiveViewer
+from gmmloc.tracking.frame import make_frame
 
 
 def _world_with_kf():

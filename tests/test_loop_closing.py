@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from gmmloc_tpu.mapping import loop_closing, map_state as ms
-from gmmloc_tpu.vocab.bow import KeyFrameDatabase, Vocabulary
+from gmmloc.mapping import loop_closing, map_state as ms
+from gmmloc.vocab.bow import KeyFrameDatabase, Vocabulary
 from tests.test_world_model import make_test_frame, small_cfg
 
 

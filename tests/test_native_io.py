@@ -10,11 +10,14 @@ import numpy as np
 import pytest
 from PIL import Image
 
-from gmmloc_tpu.utils import native
+from gmmloc.utils import native
 
-pytestmark = pytest.mark.skipif(
-    not native.io_available(), reason="native io library not built"
-)
+
+@pytest.fixture(autouse=True)
+def _io_library():
+    """Skip unless the native IO library builds (it needs libpng)."""
+    if not native.io_available():
+        pytest.skip("native io library not built (libpng missing?)")
 
 
 def _write_pngs(tmp_path, n=6, w=64, h=48, seed=0):
@@ -96,7 +99,7 @@ def test_missing_file_raises(tmp_path):
 
 def test_dataloader_uses_native_decode(tmp_path):
     # EuRoC ASL layout smoke: cam0/cam1 with a 3-frame index
-    from gmmloc_tpu.pipeline.dataloader import EuRoCDataloader
+    from gmmloc.pipeline.dataloader import EuRoCDataloader
 
     for cam in ("cam0", "cam1"):
         os.makedirs(tmp_path / "mav0" / cam / "data", exist_ok=True)

@@ -1,36 +1,24 @@
 """Online (threaded mapping) mode smoke test."""
 
 import dataclasses
-import os
 
 import numpy as np
 import pytest
 
-from gmmloc_tpu.config import euroc_v1_config
-from gmmloc_tpu.eval import synthetic
-from gmmloc_tpu.gmm import mixture
-from gmmloc_tpu.mapping.map_state import _inverse
-from gmmloc_tpu.pipeline.system import GMMLocSystem
-
-HAVE_ASSETS = os.path.exists(synthetic.V1_GMM)
+from gmmloc.config import euroc_v1_config
+from gmmloc.mapping.map_state import _inverse
+from gmmloc.pipeline.system import GMMLocSystem
+from tests import assets
 
 
-@pytest.mark.skipif(not HAVE_ASSETS, reason="reference assets absent")
-def test_online_mode_tracks_and_maps():
+@pytest.mark.parametrize("kind", assets.SOURCES)
+def test_online_mode_tracks_and_maps(kind):
     cfg = euroc_v1_config().replace(online=True)
     cfg = cfg.replace(
         tracking=dataclasses.replace(cfg.tracking, velocity_damping=0.9)
     )
-    fe, ts, q_wc, t_wc = synthetic.make_sequence(
-        cfg, n_frames=300, stride=1, n_landmarks=20000,
-        disp_noise=0.1, pixel_noise=0.25, drop_frac=0.1,
-    )
-    START, N = 150, 50
-    gmap = mixture.load(
-        synthetic.V1_GMM, pad_to=cfg.caps.gmm_components_pad,
-        neighbor_dist_thresh=cfg.gmm.neighbor_dist_thresh,
-        neighbor_cap=cfg.gmm.neighbor_cap,
-    )
+    N = 50
+    gmap, fe, ts, q_wc, t_wc, START = assets.v1_run(cfg, kind, N)
     s = GMMLocSystem(cfg, gmap)
     assert s.online is not None
     errs = []

@@ -1,21 +1,30 @@
 """Pallas staged pose solver vs the XLA oracle (pose_solver.*).
 
-The Pallas kernel runs the identical 4x10 schedule (per-round restart,
-Huber rounds 0-2, chi2 reclassification, step_tol early-freeze) so the
-two implementations must agree to float tolerance: same converged pose,
-same inlier classification away from the chi2 threshold boundary.
+Runs the kernel in interpret mode on the CPU; chip_smoke.py runs the
+same comparison compiled for the card at F=1280. The Pallas kernel runs
+the identical 4x10 schedule (per-round restart, Huber rounds 0-2, chi2
+reclassification, step_tol early-freeze) so the two implementations must
+agree to float tolerance: same converged pose, same inlier
+classification away from the chi2 threshold boundary.
 """
+
+import os
+import sys
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gmmloc_tpu.geometry import camera as cam_mod
-from gmmloc_tpu.geometry import se3
-from gmmloc_tpu.config import euroc_v1_config
-from gmmloc_tpu.solver import pallas_pose, pose_solver
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-F = 256  # lane-aligned
+import chip_smoke  # noqa: E402
+
+from gmmloc.geometry import camera as cam_mod  # noqa: E402
+from gmmloc.geometry import se3  # noqa: E402
+from gmmloc.config import euroc_v1_config  # noqa: E402
+from gmmloc.solver import pallas_pose, pose_solver  # noqa: E402
+
+F = 256
 
 
 @pytest.fixture
@@ -23,41 +32,13 @@ def cam():
     return cam_mod.CameraParams.from_config(euroc_v1_config().camera)
 
 
-def _problem(cam, seed=0, outlier_frac=0.12, noise=0.4):
-    rng = np.random.default_rng(seed)
-    uv = rng.uniform([40, 40], [cam.width - 40, cam.height - 40], (F, 2))
-    z = rng.uniform(1.0, 12.0, F)
-    x_w = np.stack(
-        [(uv[:, 0] - cam.cx) / cam.fx * z,
-         (uv[:, 1] - cam.cy) / cam.fy * z, z], -1)
-    obs = np.concatenate([uv, (uv[:, 0] - cam.bf / z)[:, None]], -1)
-    obs += rng.normal(0, noise, obs.shape)
-    n_out = int(outlier_frac * F)
-    obs[:n_out] += rng.normal(0, 30.0, obs[:n_out].shape)
-    is_stereo = rng.random(F) < 0.8
-    sigma2_inv = (1.0 / 1.2 ** (2 * rng.integers(0, 8, F))).astype(np.float32)
-    valid = rng.random(F) < 0.95
-    # perturbed init
-    q0 = np.array([1.0, 0.004, -0.006, 0.002])
-    q0 = q0 / np.linalg.norm(q0)
-    t0 = np.array([0.02, -0.015, 0.01])
-    return (
-        jnp.array(q0, jnp.float32), jnp.array(t0, jnp.float32),
-        jnp.array(x_w, jnp.float32), jnp.array(obs, jnp.float32),
-        jnp.array(is_stereo), jnp.array(sigma2_inv), jnp.array(valid),
-    )
-
-
-def _angle_deg(qa, qb):
-    d = abs(float(jnp.dot(qa, qb)))
-    return np.degrees(2 * np.arccos(min(d, 1.0)))
-
-
-def test_pallas_pose_matches_xla(cam):
-    args = _problem(cam)
+# 200 features exercise the padding lanes of the power-of-two block
+@pytest.mark.parametrize("n_feat", [F, 200])
+def test_pallas_pose_matches_xla(cam, n_feat):
+    args, _ = chip_smoke.pose_problem(cam, n_feat)
     ref = pose_solver.optimize_pose(cam, *args)
     out = pallas_pose.optimize_pose(cam, *args, interpret=True)
-    assert _angle_deg(ref.q, out.q) < 0.01
+    assert chip_smoke._rot_deg(ref.q, out.q) < 0.01
     assert float(jnp.linalg.norm(ref.t - out.t)) < 1e-3
     # inlier sets may differ only at the chi2 threshold boundary
     diff = int(jnp.sum(ref.is_outlier != out.is_outlier))
@@ -66,38 +47,11 @@ def test_pallas_pose_matches_xla(cam):
 
 
 def test_pallas_pose_anchored_matches_xla(cam):
-    rng = np.random.default_rng(3)
-    args = _problem(cam, seed=3)
-    q0, t0, x_w, obs, is_stereo, s2i, valid = args
-    # anchors: stereo unprojection of the observation at the true pose,
-    # tied to a nearby component mean
-    zs = np.where(
-        np.abs(np.asarray(obs[:, 0] - obs[:, 2])) < 1e-6, 1e9,
-        cam.bf / np.clip(np.asarray(obs[:, 0] - obs[:, 2]), 1e-6, None))
-    anc_xc = np.stack(
-        [(np.asarray(obs[:, 0]) - cam.cx) / cam.fx * zs,
-         (np.asarray(obs[:, 1]) - cam.cy) / cam.fy * zs, zs], -1)
-    anc_mean = np.asarray(x_w) + rng.normal(0, 0.01, (F, 3))
-    nrm = rng.normal(size=(F, 3))
-    anc_normal = nrm / np.linalg.norm(nrm, axis=1, keepdims=True)
-    L = np.tile(np.eye(3, dtype=np.float32) * 3.0, (F, 1, 1))
-    anc_type = np.where(
-        rng.random(F) < 0.3, pose_solver.ANCHOR_NONE,
-        np.where(rng.random(F) < 0.5, pose_solver.ANCHOR_DEG,
-                 pose_solver.ANCHOR_NONDEG)).astype(np.int32)
-    anc_type = np.where((zs > 0) & (zs < 1e3), anc_type,
-                        pose_solver.ANCHOR_NONE)
-    anc_w = np.where(anc_type == pose_solver.ANCHOR_DEG,
-                     400.0 * np.maximum(zs, 1.0) ** 2, 1.0).astype(np.float32)
-    aargs = (
-        jnp.array(anc_xc, jnp.float32), jnp.array(anc_mean, jnp.float32),
-        jnp.array(anc_normal, jnp.float32), jnp.array(L),
-        jnp.array(anc_type), jnp.array(anc_w), jnp.float32(2.56),
-    )
+    args, aargs = chip_smoke.pose_problem(cam, F, seed=3, anchored=True)
     ref = pose_solver.optimize_pose_anchored(cam, *args, *aargs)
     out = pallas_pose.optimize_pose_anchored(cam, *args, *aargs,
                                              interpret=True)
-    assert _angle_deg(ref.q, out.q) < 0.02
+    assert chip_smoke._rot_deg(ref.q, out.q) < 0.02
     assert float(jnp.linalg.norm(ref.t - out.t)) < 2e-3
     diff = int(jnp.sum(ref.is_outlier != out.is_outlier))
     assert diff <= 3
@@ -122,6 +76,18 @@ def test_pallas_pose_converges_to_truth(cam):
         jnp.array(x_w, jnp.float32), jnp.array(obs, jnp.float32),
         jnp.ones(F, bool), jnp.ones(F, jnp.float32), jnp.ones(F, bool),
         interpret=True)
-    assert _angle_deg(out.q, se3.quat_identity()) < 0.01
+    assert chip_smoke._rot_deg(out.q, se3.quat_identity()) < 0.01
     assert float(jnp.linalg.norm(out.t)) < 1e-3
     assert int(out.num_inliers) == F
+
+
+def test_pose_impl_route():
+    """TrackingConfig.pose_impl: "auto" is the XLA chain on the CPU, the
+    two explicit routes are honoured, anything else is refused."""
+    from gmmloc.tracking import fused
+
+    assert fused.use_pose_kernel("auto") is False
+    assert fused.use_pose_kernel("xla") is False
+    assert fused.use_pose_kernel("pallas") is True
+    with pytest.raises(ValueError):
+        fused.use_pose_kernel("Pallas")

@@ -18,13 +18,14 @@ import os
 
 import pytest
 
-from gmmloc_tpu.config import euroc_v1_config
-from gmmloc_tpu.eval import synthetic
-from gmmloc_tpu.gmm import mixture
-from gmmloc_tpu.pipeline.system import GMMLocSystem
-from gmmloc_tpu.utils import fetch
+from gmmloc.config import euroc_v1_config
+from gmmloc.eval import synthetic
+from gmmloc.gmm import mixture
+from gmmloc.pipeline.system import GMMLocSystem
+from gmmloc.utils import fetch
+from tests import assets
 
-HAVE_ASSETS = os.path.exists(synthetic.V1_GMM)
+HAVE_ASSETS = assets.HAVE_ASSETS
 
 
 @pytest.mark.skipif(not HAVE_ASSETS, reason="reference assets absent")
@@ -41,12 +42,12 @@ def test_packed_frame_transfer_budget():
         )
     )
     gmap = mixture.load(
-        synthetic.V1_GMM, pad_to=cfg.caps.gmm_components_pad,
+        assets.V1_GMM, pad_to=cfg.caps.gmm_components_pad,
         neighbor_dist_thresh=cfg.gmm.neighbor_dist_thresh,
         neighbor_cap=cfg.gmm.neighbor_cap,
     )
     fe, ts, q_wc, t_wc = synthetic.make_sequence(
-        cfg, n_frames=220, stride=1, n_landmarks=20000,
+        cfg, **assets.EUROC_V1_01, n_frames=220, stride=1, n_landmarks=20000,
         disp_noise=0.1, pixel_noise=0.25, drop_frac=0.1,
     )
     s = GMMLocSystem(cfg, gmap)

@@ -9,14 +9,15 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gmmloc_tpu.config import euroc_v1_config
-from gmmloc_tpu.eval import ate, synthetic
-from gmmloc_tpu.geometry import se3
-from gmmloc_tpu.gmm import mixture
-from gmmloc_tpu.mapping.map_state import _inverse
-from gmmloc_tpu.pipeline.system import GMMLocSystem
+from gmmloc.config import euroc_v1_config
+from gmmloc.eval import ate, synthetic
+from gmmloc.geometry import se3
+from gmmloc.gmm import mixture
+from gmmloc.mapping.map_state import _inverse
+from gmmloc.pipeline.system import GMMLocSystem
+from tests import assets
 
-HAVE_ASSETS = os.path.exists(synthetic.V1_GMM)
+HAVE_ASSETS = assets.HAVE_ASSETS
 
 
 # ---------------------------------------------------------------------------
@@ -57,12 +58,12 @@ def test_end_to_end_tracking_accuracy():
         tracking=dataclasses.replace(cfg.tracking, velocity_damping=0.9)
     )
     fe, ts, q_wc, t_wc = synthetic.make_sequence(
-        cfg, n_frames=400, stride=1, n_landmarks=20000,
+        cfg, **assets.EUROC_V1_01, n_frames=400, stride=1, n_landmarks=20000,
         disp_noise=0.1, pixel_noise=0.25, drop_frac=0.1,
     )
     START, N = 150, 60
     gmap = mixture.load(
-        synthetic.V1_GMM, pad_to=cfg.caps.gmm_components_pad,
+        assets.V1_GMM, pad_to=cfg.caps.gmm_components_pad,
         neighbor_dist_thresh=cfg.gmm.neighbor_dist_thresh,
         neighbor_cap=cfg.gmm.neighbor_cap,
     )
@@ -92,10 +93,10 @@ def test_end_to_end_tracking_accuracy():
 
 
 def test_sharded_association_matches_single_device(rng):
-    from gmmloc_tpu.geometry import camera as cam_mod
-    from gmmloc_tpu.config import CameraConfig
-    from gmmloc_tpu.gmm import render
-    from gmmloc_tpu.parallel import sharding
+    from gmmloc.geometry import camera as cam_mod
+    from gmmloc.config import CameraConfig
+    from gmmloc.gmm import render
+    from gmmloc.parallel import sharding
 
     cam = cam_mod.CameraParams.from_config(CameraConfig())
     K = 128
@@ -123,7 +124,7 @@ def test_sharded_association_matches_single_device(rng):
 def test_dryrun_multichip_entrypoint():
     import sys
 
-    sys.path.insert(0, "/root/repo")
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     import __graft_entry__ as g
 
     fn, args = g.entry()
@@ -138,10 +139,10 @@ def test_dryrun_multichip_entrypoint():
 
 
 def test_rectifier_loads_reference_yaml():
-    path = "/root/reference/gmmloc_ros/cfg/euroc_rect.yaml"
-    if not os.path.exists(path):
-        pytest.skip("reference yaml absent")
-    from gmmloc_tpu.pipeline.rectify import Rectifier
+    if not assets.EUROC_DIR:
+        pytest.skip("EuRoC rectification yaml absent (GMMLOC_EUROC_DATA)")
+    path = os.path.join(assets.EUROC_DIR, "..", "cfg", "euroc_rect.yaml")
+    from gmmloc.pipeline.rectify import Rectifier
 
     r = Rectifier(path)
     img = np.random.default_rng(0).uniform(0, 255, (480, 752)).astype(np.float32)
@@ -151,7 +152,7 @@ def test_rectifier_loads_reference_yaml():
 
 
 def test_equalize_hist_spreads_range():
-    from gmmloc_tpu.pipeline.rectify import equalize_hist
+    from gmmloc.pipeline.rectify import equalize_hist
 
     img = np.full((64, 64), 100.0, np.float32)
     img[:32] = 110.0
@@ -167,25 +168,22 @@ def test_end_to_end_determinism():
     cfg = cfg.replace(
         tracking=dataclasses.replace(cfg.tracking, velocity_damping=0.9)
     )
-    gmap = mixture.load(
-        synthetic.V1_GMM, pad_to=cfg.caps.gmm_components_pad,
-        neighbor_dist_thresh=cfg.gmm.neighbor_dist_thresh,
-        neighbor_cap=cfg.gmm.neighbor_cap,
-    )
+    room = synthetic.seeded_room(40, seed=1, n_components=400)
+    gmap = mixture.for_config(room.means, room.covs, cfg)
 
     def run():
         # rebuild the synthetic front-end per run: its observation-noise
         # stream is stateful (advances per make_frame call), and the test
         # isolates SYSTEM determinism, not harness state
         fe, ts, q_wc, t_wc = synthetic.make_sequence(
-            cfg, n_frames=200, stride=1, n_landmarks=20000,
-            disp_noise=0.1, pixel_noise=0.25, drop_frac=0.1,
+            cfg, gmm=(room.means, room.covs), trajectory=room.trajectory,
+            n_landmarks=12000, disp_noise=0.1, pixel_noise=0.25,
+            drop_frac=0.1,
         )
         s = GMMLocSystem(cfg, gmap)
         for i in range(40):
-            fi = 150 + i
-            f = fe.make_frame(i, ts[fi], q_wc[fi], t_wc[fi])
-            st = s.step(f, q_wc[fi], t_wc[fi])
+            f = fe.make_frame(i, ts[i], q_wc[i], t_wc[i])
+            st = s.step(f, q_wc[i], t_wc[i])
             assert st is None or st.res
         ts_e, q_e, t_e = s.export_trajectory()
         return ts_e, q_e, t_e, s.world.n_keyframes(), s.world.n_points()

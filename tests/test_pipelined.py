@@ -9,28 +9,21 @@ and the accuracy configuration stay one system (VERDICT r1 weak #1).
 """
 
 import dataclasses
-import os
 
 import numpy as np
 import pytest
 
-from gmmloc_tpu.config import euroc_v1_config
-from gmmloc_tpu.eval import synthetic
-from gmmloc_tpu.gmm import mixture
-from gmmloc_tpu.pipeline.system import GMMLocSystem
-
-HAVE_ASSETS = os.path.exists(synthetic.V1_GMM)
+from gmmloc.config import euroc_v1_config
+from gmmloc.pipeline.system import GMMLocSystem
+from tests import assets
 
 
-def _run(cfg, gmap, n=60):
-    fe, ts, q_wc, t_wc = synthetic.make_sequence(
-        cfg, n_frames=220, stride=1, n_landmarks=20000,
-        disp_noise=0.1, pixel_noise=0.25, drop_frac=0.1,
-    )
+def _run(cfg, kind, n=60):
+    gmap, fe, ts, q_wc, t_wc, start = assets.v1_run(cfg, kind, n)
     s = GMMLocSystem(cfg, gmap)
     stats = []
     for i in range(n):
-        fi = 150 + i
+        fi = start + i
         f = fe.make_frame(i, ts[fi], q_wc[fi], t_wc[fi])
         st = s.step(f, q_wc[fi], t_wc[fi])
         assert not s.track_failed
@@ -44,8 +37,8 @@ def _run(cfg, gmap, n=60):
     return ts_e, q_e, t_e, s.world.n_keyframes(), s.world.n_points(), stats
 
 
-@pytest.mark.skipif(not HAVE_ASSETS, reason="reference assets absent")
-def test_pipelined_equals_sync():
+@pytest.mark.parametrize("kind", assets.SOURCES)
+def test_pipelined_equals_sync(kind):
     base = euroc_v1_config()
     # pipelined_track defaults True — the sync baseline must OPT OUT
     # explicitly or both runs are pipelined and the test is vacuous
@@ -56,16 +49,11 @@ def test_pipelined_equals_sync():
             pipelined_track=False,
         )
     )
-    gmap = mixture.load(
-        synthetic.V1_GMM, pad_to=base.caps.gmm_components_pad,
-        neighbor_dist_thresh=base.gmm.neighbor_dist_thresh,
-        neighbor_cap=base.gmm.neighbor_cap,
-    )
-    sync = _run(base, gmap)
+    sync = _run(base, kind)
     piped_cfg = base.replace(
         tracking=dataclasses.replace(base.tracking, pipelined_track=True)
     )
-    piped = _run(piped_cfg, gmap)
+    piped = _run(piped_cfg, kind)
 
     # identical trajectory (every frame), map size, and per-frame stats
     np.testing.assert_array_equal(sync[0], piped[0])
@@ -76,8 +64,8 @@ def test_pipelined_equals_sync():
     assert sync[5] == piped[5]
 
 
-@pytest.mark.skipif(not HAVE_ASSETS, reason="reference assets absent")
-def test_pipelined_flush_idempotent():
+@pytest.mark.parametrize("kind", assets.SOURCES)
+def test_pipelined_flush_idempotent(kind):
     cfg = euroc_v1_config()
     cfg = cfg.replace(
         tracking=dataclasses.replace(
@@ -85,18 +73,10 @@ def test_pipelined_flush_idempotent():
             use_fused_track=True, pipelined_track=True,
         )
     )
-    gmap = mixture.load(
-        synthetic.V1_GMM, pad_to=cfg.caps.gmm_components_pad,
-        neighbor_dist_thresh=cfg.gmm.neighbor_dist_thresh,
-        neighbor_cap=cfg.gmm.neighbor_cap,
-    )
-    fe, ts, q_wc, t_wc = synthetic.make_sequence(
-        cfg, n_frames=180, stride=1, n_landmarks=20000,
-        disp_noise=0.1, pixel_noise=0.25, drop_frac=0.1,
-    )
+    gmap, fe, ts, q_wc, t_wc, start = assets.v1_run(cfg, kind, 12)
     s = GMMLocSystem(cfg, gmap)
     for i in range(12):
-        fi = 150 + i
+        fi = start + i
         f = fe.make_frame(i, ts[fi], q_wc[fi], t_wc[fi])
         s.step(f, q_wc[fi], t_wc[fi])
     st = s.flush()

@@ -3,8 +3,8 @@
 import jax.numpy as jnp
 import numpy as np
 
-from gmmloc_tpu.geometry import se3
-from gmmloc_tpu.solver import pose_graph as pg
+from gmmloc.geometry import se3
+from gmmloc.solver import pose_graph as pg
 
 
 def ring_graph(rng, n=12, drift=0.02):

@@ -14,15 +14,14 @@ import os
 import numpy as np
 import pytest
 
-from gmmloc_tpu.config import euroc_v1_config
-from gmmloc_tpu.eval import ate, synthetic
-from gmmloc_tpu.gmm import mixture
-from gmmloc_tpu.pipeline.system import GMMLocSystem
-from gmmloc_tpu.vocab.bow import Vocabulary
+from gmmloc.config import euroc_v1_config
+from gmmloc.eval import ate, synthetic
+from gmmloc.gmm import mixture
+from gmmloc.pipeline.system import GMMLocSystem
+from gmmloc.vocab.bow import Vocabulary
+from tests import assets
 
-HAVE_ASSETS = os.path.exists(synthetic.V1_GMM) and os.path.exists(
-    f"{synthetic.GT_DIR}/V1_01_easy.txt"
-)
+HAVE_ASSETS = assets.HAVE_ASSETS
 
 
 @pytest.mark.skipif(not HAVE_ASSETS, reason="reference assets absent")
@@ -32,11 +31,11 @@ def test_lost_state_relocalization_recovers():
         tracking=dataclasses.replace(cfg.tracking, velocity_damping=0.9)
     )
     fe, ts, q_wc, t_wc = synthetic.make_sequence(
-        cfg, n_frames=400, stride=1, n_landmarks=20000,
+        cfg, **assets.EUROC_V1_01, n_frames=400, stride=1, n_landmarks=20000,
         disp_noise=0.1, pixel_noise=0.25, drop_frac=0.1,
     )
     gmap = mixture.load(
-        synthetic.V1_GMM, pad_to=cfg.caps.gmm_components_pad,
+        assets.V1_GMM, pad_to=cfg.caps.gmm_components_pad,
         neighbor_dist_thresh=cfg.gmm.neighbor_dist_thresh,
         neighbor_cap=cfg.gmm.neighbor_cap,
     )
@@ -100,11 +99,11 @@ def test_kidnapped_robot_relocalizes_into_old_map():
         tracking=dataclasses.replace(cfg.tracking, velocity_damping=0.9)
     )
     fe, ts, q_wc, t_wc = synthetic.make_sequence(
-        cfg, n_frames=500, stride=1, n_landmarks=20000,
+        cfg, **assets.EUROC_V1_01, n_frames=500, stride=1, n_landmarks=20000,
         disp_noise=0.1, pixel_noise=0.25, drop_frac=0.1,
     )
     gmap = mixture.load(
-        synthetic.V1_GMM, pad_to=cfg.caps.gmm_components_pad,
+        assets.V1_GMM, pad_to=cfg.caps.gmm_components_pad,
         neighbor_dist_thresh=cfg.gmm.neighbor_dist_thresh,
         neighbor_cap=cfg.gmm.neighbor_cap,
     )

@@ -6,7 +6,7 @@ import numpy as np
 import pytest
 from scipy.spatial.transform import Rotation
 
-from gmmloc_tpu.geometry import se3
+from gmmloc.geometry import se3
 
 
 def random_quat(rng, n=None):

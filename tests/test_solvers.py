@@ -6,10 +6,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gmmloc_tpu.config import CameraConfig
-from gmmloc_tpu.geometry import camera as cam_mod
-from gmmloc_tpu.geometry import se3
-from gmmloc_tpu.solver import factors, local_ba, point_solver, pose_solver
+from gmmloc.config import CameraConfig
+from gmmloc.geometry import camera as cam_mod
+from gmmloc.geometry import se3
+from gmmloc.solver import factors, local_ba, point_solver, pose_solver
 
 CAM = cam_mod.CameraParams.from_config(CameraConfig())
 

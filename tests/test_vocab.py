@@ -2,7 +2,7 @@
 
 import numpy as np
 
-from gmmloc_tpu.vocab.bow import KeyFrameDatabase, Vocabulary
+from gmmloc.vocab.bow import KeyFrameDatabase, Vocabulary
 
 
 def corrupt(desc, rng, bits=6):

@@ -4,9 +4,9 @@ covisibility, replacement, culling, trajectory re-anchoring."""
 import numpy as np
 import pytest
 
-from gmmloc_tpu.config import euroc_v1_config
-from gmmloc_tpu.mapping import map_state as ms
-from gmmloc_tpu.tracking.frame import make_frame
+from gmmloc.config import euroc_v1_config
+from gmmloc.mapping import map_state as ms
+from gmmloc.tracking.frame import make_frame
 
 
 def small_cfg():

@@ -1,8 +1,8 @@
-"""Local-BA variant micro-benchmark on the real chip.
+"""Local-BA variant micro-benchmark on the default device.
 
-Times solve_local_ba across tier shapes and {f32, bf16} staging with an
-honest in-jit completion sync. Prints a small table; used to track the
-BA-iteration cost (the gap to the 5x throughput target, RESULTS.md).
+Times solve_local_ba across tier shapes and {f32, bf16} staging, each
+call run to completion (float(cost)). Prints a small table; used to track
+the BA-iteration cost.
 
 Usage: python tools/ba_bench.py [--iters3 40]
 """
@@ -14,9 +14,9 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from gmmloc_tpu.utils.tpuenv import ensure_fast_tpu_env
+from gmmloc.utils import jaxenv
 
-ensure_fast_tpu_env()
+jaxenv.setup_compile_cache()
 
 import numpy as np
 
@@ -24,7 +24,7 @@ import numpy as np
 def build(rng, cam, L, C, P, MO, noise_px=0.5):
     import jax.numpy as jnp
 
-    from gmmloc_tpu.solver import local_ba
+    from gmmloc.solver import local_ba
 
     cam_q = np.tile(np.array([1.0, 0, 0, 0], np.float32), (C, 1))
     cam_t = np.zeros((C, 3), np.float32)
@@ -81,9 +81,9 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    from gmmloc_tpu.config import euroc_v1_config
-    from gmmloc_tpu.geometry import camera as cam_mod
-    from gmmloc_tpu.solver import local_ba
+    from gmmloc.config import euroc_v1_config
+    from gmmloc.geometry import camera as cam_mod
+    from gmmloc.solver import local_ba
 
     cfg = euroc_v1_config()
     cam = cam_mod.CameraParams.from_config(cfg.camera)

@@ -1,10 +1,10 @@
-"""Compare solve_local_ba variants {schur_impl}x{linear_solver} on-chip.
+"""Compare solve_local_ba variants {schur_impl}x{linear_solver} on the
+default device.
 
-Times the full staged solve (5/5/iters3 LM) per combo with the honest
-completion sync (float(cost)) and two-point slope; the winner becomes the
-config default (RESULTS.md round-2 queue: BA iteration cost).
+Times the full staged solve (5/5/iters3 LM) per combo, each call run to
+completion (float(cost)); the winner becomes the config default.
 
-Usage: python tools/ba_variants.py [--iters3 40] [--cpu]
+Usage: python tools/ba_variants.py [--iters3 40]
 """
 
 import argparse
@@ -14,9 +14,9 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from gmmloc_tpu.utils.tpuenv import ensure_fast_tpu_env
+from gmmloc.utils import jaxenv
 
-ensure_fast_tpu_env()
+jaxenv.setup_compile_cache()
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 import numpy as np
@@ -26,7 +26,6 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--iters3", type=int, default=40)
     ap.add_argument("--reps", type=int, default=4)
-    ap.add_argument("--cpu", action="store_true")
     ap.add_argument("--tier", type=int, default=-1,
                     help="run only tier index (default: all)")
     ap.add_argument("--combos", default="all",
@@ -35,16 +34,14 @@ def main():
 
     import jax
 
-    if args.cpu:
-        jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_default_matmul_precision", "highest")
     print("devices:", jax.devices(), flush=True)
 
     from ba_bench import build
 
-    from gmmloc_tpu.config import euroc_v1_config
-    from gmmloc_tpu.geometry import camera as cam_mod
-    from gmmloc_tpu.solver import local_ba
+    from gmmloc.config import euroc_v1_config
+    from gmmloc.geometry import camera as cam_mod
+    from gmmloc.solver import local_ba
 
     cfg = euroc_v1_config()
     cam = cam_mod.CameraParams.from_config(cfg.camera)

@@ -6,8 +6,9 @@ inlier count, map ratio, KF events, LOST/reloc events. Written as CSV to
 diverges.
 
 Usage:
-  python tools/diagnose_seq.py --seq V1_03_difficult --frames 400 \
-      --start 150 --out /tmp/diag.csv [--reloc 1]
+  python tools/diagnose_seq.py --map DIR --seq V1_03_difficult \
+      --frames 400 --start 150 --out diag.csv [--reloc 1]
+  python tools/diagnose_seq.py --map room --start 0 --out diag.csv
 """
 
 import argparse
@@ -18,17 +19,17 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from gmmloc_tpu.utils.tpuenv import ensure_fast_tpu_env
+from gmmloc.utils import jaxenv
 
-ensure_fast_tpu_env()
+jaxenv.setup_compile_cache()
 
 import numpy as np
 
-from gmmloc_tpu.config import euroc_v1_config
-from gmmloc_tpu.eval import ate, synthetic
-from gmmloc_tpu.gmm import mixture
-from gmmloc_tpu.mapping import map_state as ms
-from gmmloc_tpu.pipeline.system import GMMLocSystem
+from gmmloc.config import euroc_v1_config
+from gmmloc.eval import ate, synthetic
+from gmmloc.gmm import mixture
+from gmmloc.mapping import map_state as ms
+from gmmloc.pipeline.system import GMMLocSystem
 
 
 def quat_angle_deg(q1, q2):
@@ -38,12 +39,13 @@ def quat_angle_deg(q1, q2):
 
 def main():
     ap = argparse.ArgumentParser()
+    ap.add_argument("--map", required=True, help=synthetic.MAP_HELP)
     ap.add_argument("--seq", default="V1_03_difficult")
     ap.add_argument("--frames", type=int, default=400)
     ap.add_argument("--start", type=int, default=150)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--reloc", type=int, default=1)
-    ap.add_argument("--out", default="/tmp/diag.csv")
+    ap.add_argument("--out", default="diag.csv")
     ap.add_argument("--damping", type=float, default=0.9)
     ap.add_argument("--ema", type=float, default=None)
     ap.add_argument("--anchor", type=int, default=None)
@@ -63,11 +65,10 @@ def main():
         tracking=dataclasses.replace(cfg.tracking, **tk),
         enable_relocalization=bool(args.reloc),
     )
-    gmm_path = synthetic.V2_GMM if args.seq.startswith("V2") else synthetic.V1_GMM
+    means, covs, trajectory = synthetic.load_map_and_trajectory(
+        args.map, args.seq, args.start + args.frames, seed=args.seed)
     fe, ts, q_wc, t_wc = synthetic.make_sequence(
-        cfg,
-        gt_path=f"{synthetic.GT_DIR}/{args.seq}.txt",
-        gmm_path=gmm_path,
+        cfg, gmm=(means, covs), trajectory=trajectory,
         n_frames=args.start + args.frames,
         n_landmarks=30000,
         seed=args.seed,
@@ -75,18 +76,11 @@ def main():
     )
     ts, q_wc, t_wc = ts[args.start:], q_wc[args.start:], t_wc[args.start:]
 
-    gmap = mixture.load(
-        gmm_path,
-        pad_to=cfg.caps.gmm_components_pad,
-        neighbor_dist_thresh=cfg.gmm.neighbor_dist_thresh,
-        neighbor_cap=cfg.gmm.neighbor_cap,
-        degenerate_eig_thresh=cfg.gmm.degenerate_eig_thresh,
-        salient_eig_thresh=cfg.gmm.salient_eig_thresh,
-    )
+    gmap = mixture.for_config(means, covs, cfg)
     vocab = None
     if args.reloc:
         # on-domain vocabulary, as in tools/evaluate.py
-        from gmmloc_tpu.vocab.bow import Vocabulary
+        from gmmloc.vocab.bow import Vocabulary
 
         sub = fe.world.desc[:: max(1, len(fe.world.desc) // 20000)]
         vocab = Vocabulary.train(sub, k=10, depth=4, seed=0)

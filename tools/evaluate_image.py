@@ -3,14 +3,16 @@
 
 The feature-level harness (tools/evaluate.py) bypasses the detector/
 descriptor/stereo stack; this one renders stereo images of a GMM-sampled
-sprite world along the real EuRoC GT trajectories and drives the whole
+sprite world along a trajectory (--map: the seeded room, or the EuRoC
+ground truth and map under a data directory) and drives the whole
 pipeline through them — detector noise, descriptor churn, stereo-matching
 errors and all. Ref counterpart: the reference benchmark is image-driven
 (orb_extractor.cpp:988-1050, frame.cpp:179-349).
 
 Usage:
-  python tools/evaluate_image.py [--seqs V1_01_easy] [--runs 1]
-                                 [--frames 600] [--start 0] [--out expr_img]
+  python tools/evaluate_image.py --map room|DIR [--seqs V1_01_easy]
+                                 [--runs 1] [--frames 600] [--start 0]
+                                 [--out img_out]
 """
 
 import argparse
@@ -22,28 +24,23 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from gmmloc_tpu.utils.tpuenv import ensure_fast_tpu_env
+from gmmloc.utils import jaxenv
 
-ensure_fast_tpu_env()
+jaxenv.setup_compile_cache()
 
 import numpy as np
 
-from gmmloc_tpu.config import euroc_v1_config
-from gmmloc_tpu.eval import ate, synthetic
-from gmmloc_tpu.eval.image_synthetic import SpriteRenderer
-from gmmloc_tpu.gmm import mixture
-from gmmloc_tpu.pipeline.frontend import ImageFrontend
-from gmmloc_tpu.pipeline.system import GMMLocSystem
-from gmmloc_tpu.utils import proto
+from gmmloc.config import euroc_v1_config
+from gmmloc.eval import ate, synthetic
+from gmmloc.eval.image_synthetic import SpriteRenderer
+from gmmloc.gmm import mixture
+from gmmloc.pipeline.frontend import ImageFrontend
+from gmmloc.pipeline.system import GMMLocSystem
 
 
-def run_once(cfg, seq, run_idx, n_frames, start, gmap, out_path=None,
-             packed=True, reloc=False, n_landmarks=9000):
-    gmm_path = synthetic.V2_GMM if seq.startswith("V2") else synthetic.V1_GMM
-    ts, q_wc, t_wc = synthetic.load_gt_trajectory(
-        f"{synthetic.GT_DIR}/{seq}.txt"
-    )
-    means, covs, _, _ = proto.load_gmm_file(gmm_path)
+def run_once(cfg, seq, run_idx, n_frames, start, gmap, source,
+             out_path=None, packed=True, reloc=False, n_landmarks=9000):
+    means, covs, (ts, q_wc, t_wc) = source
     world = synthetic.sample_world_from_gmm(
         means, covs, n_landmarks=n_landmarks, seed=run_idx
     )
@@ -51,7 +48,7 @@ def run_once(cfg, seq, run_idx, n_frames, start, gmap, out_path=None,
     frontend = ImageFrontend(cfg)
     voc = None
     if reloc:
-        from gmmloc_tpu.vocab.bow import Vocabulary
+        from gmmloc.vocab.bow import Vocabulary
 
         voc = Vocabulary.train(
             world.desc[:: max(1, len(world.desc) // 20000)],
@@ -158,11 +155,13 @@ def run_once(cfg, seq, run_idx, n_frames, start, gmap, out_path=None,
 
 def main():
     ap = argparse.ArgumentParser()
+    ap.add_argument("--map", required=True, help=synthetic.MAP_HELP)
+    ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--runs", type=int, default=1)
     ap.add_argument("--frames", type=int, default=600)
     ap.add_argument("--start", type=int, default=0)
     ap.add_argument("--seqs", default="V1_01_easy")
-    ap.add_argument("--out", default="expr_img")
+    ap.add_argument("--out", default="img_out")
     ap.add_argument("--damping", type=float, default=0.9)
     ap.add_argument("--refexact", action="store_true",
                     help="reference-exact tracking contract (ablation, "
@@ -171,7 +170,6 @@ def main():
                          "off, plausibility gate off, no relocalization "
                          "(the reference's behavior is tracking.cpp:35-116 "
                          "alone)")
-    ap.add_argument("--cpu", action="store_true")
     ap.add_argument("--reloc", type=int, default=0,
                     help="1: arm the BoW relocalization rescue (capability "
                          "extension; default 0 = reference contract, "
@@ -188,10 +186,6 @@ def main():
     ap.add_argument("--landmarks", type=int, default=9000,
                     help="sprite-world landmark count (fidelity knob)")
     args = ap.parse_args()
-    if args.cpu:
-        import jax
-
-        jax.config.update("jax_platforms", "cpu")
     os.makedirs(args.out, exist_ok=True)
     cfg = euroc_v1_config()
     tk = dict(
@@ -216,19 +210,14 @@ def main():
         frame=dataclasses.replace(cfg.frame, **fr),
     )
     results = {}
-    gmaps = {}
-    for seq in args.seqs.split(","):
-        gmm_path = synthetic.V2_GMM if seq.startswith("V2") else synthetic.V1_GMM
-        if gmm_path not in gmaps:
-            gmaps[gmm_path] = mixture.load(
-                gmm_path, pad_to=cfg.caps.gmm_components_pad,
-                neighbor_dist_thresh=cfg.gmm.neighbor_dist_thresh,
-                neighbor_cap=cfg.gmm.neighbor_cap,
-            )
+    seqs = ["room"] if args.map == "room" else args.seqs.split(",")
+    for seq in seqs:
+        source = synthetic.load_map_and_trajectory(
+            args.map, seq, args.start + args.frames, seed=args.seed)
+        gmap = mixture.for_config(source[0], source[1], cfg)
         runs = []
         for r in range(args.runs):
-            m = run_once(cfg, seq, r, args.frames, args.start,
-                         gmaps[gmm_path],
+            m = run_once(cfg, seq, r, args.frames, args.start, gmap, source,
                          os.path.join(args.out, f"{seq}{r}.txt"),
                          packed=bool(args.packed), reloc=bool(args.reloc),
                          n_landmarks=args.landmarks)

@@ -2,7 +2,8 @@
 
 Exercises the FULL pipeline including the image front-end (the
 feature-level harness bypasses it). Usage:
-  python tools/run_image_pipeline.py [n_frames] [start]
+  python tools/run_image_pipeline.py --map room [--seed 0] [--frames 30]
+  python tools/run_image_pipeline.py --map DIR [--frames 30] [--start 150]
 """
 
 import os
@@ -11,47 +12,47 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from gmmloc_tpu.utils.tpuenv import ensure_fast_tpu_env
+from gmmloc.utils import jaxenv
 
-ensure_fast_tpu_env()
+jaxenv.setup_compile_cache()
+
+import argparse
+import dataclasses
 
 import numpy as np
 
-import dataclasses
-
-from gmmloc_tpu.config import euroc_v1_config
-from gmmloc_tpu.eval import synthetic
-from gmmloc_tpu.eval.image_synthetic import SpriteRenderer
-from gmmloc_tpu.gmm import mixture
-from gmmloc_tpu.mapping.map_state import _inverse
-from gmmloc_tpu.pipeline.frontend import ImageFrontend
-from gmmloc_tpu.pipeline.system import GMMLocSystem
+from gmmloc.config import euroc_v1_config
+from gmmloc.eval import synthetic
+from gmmloc.eval.image_synthetic import SpriteRenderer
+from gmmloc.gmm import mixture
+from gmmloc.mapping.map_state import _inverse
+from gmmloc.pipeline.frontend import ImageFrontend
+from gmmloc.pipeline.system import GMMLocSystem
 
 
 def main():
-    n_frames = int(sys.argv[1]) if len(sys.argv) > 1 else 30
-    start = int(sys.argv[2]) if len(sys.argv) > 2 else 150
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--map", required=True, help=synthetic.MAP_HELP)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--frames", type=int, default=30)
+    ap.add_argument("--start", type=int, default=None,
+                    help="first frame (default 150 for EuRoC, 0 for the room)")
+    args = ap.parse_args()
+    n_frames = args.frames
+    start = args.start if args.start is not None else (
+        0 if args.map == "room" else 150)
 
     cfg = euroc_v1_config()
     cfg = cfg.replace(
         camera=dataclasses.replace(cfg.camera, do_rectify=False, do_equalization=False),
         tracking=dataclasses.replace(cfg.tracking, velocity_damping=0.9),
     )
-    ts, q_wc, t_wc = synthetic.load_gt_trajectory(
-        f"{synthetic.GT_DIR}/V1_01_easy.txt"
-    )
-    from gmmloc_tpu.utils import proto
-
-    means, covs, _, _ = proto.load_gmm_file(synthetic.V1_GMM)
+    means, covs, (ts, q_wc, t_wc) = synthetic.load_map_and_trajectory(
+        args.map, "V1_01_easy", start + n_frames, seed=args.seed)
     world = synthetic.sample_world_from_gmm(means, covs, n_landmarks=9000)
     renderer = SpriteRenderer(world, cfg)
     frontend = ImageFrontend(cfg)
-    gmap = mixture.load(
-        synthetic.V1_GMM, pad_to=cfg.caps.gmm_components_pad,
-        neighbor_dist_thresh=cfg.gmm.neighbor_dist_thresh,
-        neighbor_cap=cfg.gmm.neighbor_cap,
-    )
-    sys_ = GMMLocSystem(cfg, gmap)
+    sys_ = GMMLocSystem(cfg, mixture.for_config(means, covs, cfg))
 
     t0 = time.time()
     frames = []

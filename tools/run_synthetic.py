@@ -1,59 +1,67 @@
-"""End-to-end synthetic run: full system on a GT trajectory segment.
+"""End-to-end synthetic run: the full system along a trajectory.
 
-Usage: python tools/run_synthetic.py [n_frames] [stride] [seq] [start]
-(default start=150 skips the stationary, depth-degenerate opening of the
-V1/V2 sequences — see README deliberate deviations.)
+Usage:
+  python tools/run_synthetic.py --map room [--seed 0] [--frames 100]
+  python tools/run_synthetic.py --map DIR [--seq V1_01_easy] [--start 150]
+                                [--stride 1] [--frames 100]
+--map room runs the seeded V1-size room; --map DIR the EuRoC map and
+ground truth under DIR (start=150 skips the stationary, depth-degenerate
+opening of the V1/V2 sequences — see README deliberate deviations).
 """
 
+import argparse
+import dataclasses
+import os
 import sys
 import time
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from gmmloc_tpu.utils.tpuenv import ensure_fast_tpu_env
+from gmmloc.utils import jaxenv
 
-ensure_fast_tpu_env()
+jaxenv.setup_compile_cache()
 
-import jax
-
-if "cpu" in str(jax.devices()).lower() or True:
-    pass  # platform chosen by env / sitecustomize
-
-import numpy as np
-
-from gmmloc_tpu.config import euroc_v1_config
-from gmmloc_tpu.eval import ate, synthetic
-from gmmloc_tpu.pipeline.system import GMMLocSystem
+from gmmloc.config import euroc_v1_config
+from gmmloc.eval import ate, synthetic
+from gmmloc.gmm import mixture
+from gmmloc.pipeline.system import GMMLocSystem
 
 
 def main():
-    n_frames = int(sys.argv[1]) if len(sys.argv) > 1 else 100
-    stride = int(sys.argv[2]) if len(sys.argv) > 2 else 1
-    seq = sys.argv[3] if len(sys.argv) > 3 else "V1_01_easy"
-    start = int(sys.argv[4]) if len(sys.argv) > 4 else 150
-
-    import dataclasses
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--map", required=True, help=synthetic.MAP_HELP)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--seq", default="V1_01_easy")
+    ap.add_argument("--frames", type=int, default=100)
+    ap.add_argument("--stride", type=int, default=1)
+    ap.add_argument("--start", type=int, default=None,
+                    help="first frame (default 150 for EuRoC, 0 for the room)")
+    args = ap.parse_args()
+    start = args.start if args.start is not None else (
+        0 if args.map == "room" else 150)
+    n_frames, stride = args.frames, args.stride
 
     cfg = euroc_v1_config()
     cfg = cfg.replace(
         tracking=dataclasses.replace(cfg.tracking, velocity_damping=0.9)
     )
+    means, covs, trajectory = synthetic.load_map_and_trajectory(
+        args.map, args.seq, (start + n_frames) * stride, seed=args.seed)
     fe, ts, q_wc, t_wc = synthetic.make_sequence(
-        cfg,
-        gt_path=f"{synthetic.GT_DIR}/{seq}.txt",
+        cfg, gmm=(means, covs), trajectory=trajectory,
         n_frames=start + n_frames,
         stride=stride,
         n_landmarks=30000,
         disp_noise=0.1, pixel_noise=0.25, drop_frac=0.1,
     )
     ts, q_wc, t_wc = ts[start:], q_wc[start:], t_wc[start:]
-    sys_ = GMMLocSystem(cfg, fe_gmap(cfg))
+    sys_ = GMMLocSystem(cfg, mixture.for_config(means, covs, cfg))
 
     t0 = time.time()
     frames = []
     stats = []
 
-    from gmmloc_tpu.utils.control import control as ctl, install_signal_handlers
+    from gmmloc.utils.control import control as ctl, install_signal_handlers
 
     install_signal_handlers()  # SIGUSR1 pause / SIGUSR2 step / SIGTERM stop
     for i in range(len(ts)):
@@ -86,16 +94,6 @@ def main():
     ts_est, q_est, t_est = sys_.export_trajectory()
     m = ate.ate_rmse(ts_est, t_est, ts[:n_done], t_wc[:n_done])
     print(f"ATE: rmse={m['rmse']*100:.2f}cm mean={m['mean']*100:.2f}cm n={m['n']}")
-
-
-def fe_gmap(cfg):
-    from gmmloc_tpu.gmm import mixture
-    return mixture.load(
-        synthetic.V1_GMM,
-        pad_to=cfg.caps.gmm_components_pad,
-        neighbor_dist_thresh=cfg.gmm.neighbor_dist_thresh,
-        neighbor_cap=cfg.gmm.neighbor_cap,
-    )
 
 
 if __name__ == "__main__":

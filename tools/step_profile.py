@@ -14,8 +14,9 @@ clock), then reports
   - the unattributed remainder (pose init, KF policy, loop overhead)
 
 Usage:
-  python tools/step_profile.py [--frames 260] [--warm 40] [--cpu]
-                               [--out expr_prof/step_profile.json]
+  python tools/step_profile.py --map room|DIR [--frames 260] [--warm 40]
+                               [--out step_profile.json]
+(JAX_PLATFORMS=cpu for the CPU backend.)
 """
 
 import argparse
@@ -27,43 +28,38 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from gmmloc_tpu.utils.tpuenv import ensure_fast_tpu_env
-
-if __name__ == "__main__":
-    ensure_fast_tpu_env()
+from gmmloc.utils import jaxenv
 
 import numpy as np
 
 
 def main():
     ap = argparse.ArgumentParser()
+    ap.add_argument("--map", required=True,
+                    help="'room' or the EuRoC data directory")
+    ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--frames", type=int, default=260)
     ap.add_argument("--warm", type=int, default=40)
     ap.add_argument("--start", type=int, default=150)
     ap.add_argument("--seq", default="V1_01_easy")
-    ap.add_argument("--out", default="expr_prof/step_profile.json")
-    ap.add_argument("--cpu", action="store_true")
+    ap.add_argument("--out", default="step_profile.json")
     ap.add_argument("--pipelined", type=int, default=None)
     ap.add_argument("--depth", type=int, default=None)
     ap.add_argument("--online", action="store_true")
     args = ap.parse_args()
 
-    if args.cpu:
-        import jax
-
-        jax.config.update("jax_platforms", "cpu")
-
+    jaxenv.setup_compile_cache()
     import jax
 
     jax.config.update("jax_default_matmul_precision", "highest")
 
-    from gmmloc_tpu.config import euroc_v1_config
-    from gmmloc_tpu.eval import synthetic
-    from gmmloc_tpu.gmm import mixture
-    from gmmloc_tpu.pipeline import prewarm as prewarm_mod
-    from gmmloc_tpu.pipeline.system import GMMLocSystem
-    from gmmloc_tpu.utils import fetch as fetch_mod
-    from gmmloc_tpu.utils import timing as timing_mod
+    from gmmloc.config import euroc_v1_config
+    from gmmloc.eval import synthetic
+    from gmmloc.gmm import mixture
+    from gmmloc.pipeline import prewarm as prewarm_mod
+    from gmmloc.pipeline.system import GMMLocSystem
+    from gmmloc.utils import fetch as fetch_mod
+    from gmmloc.utils import timing as timing_mod
 
     cfg = euroc_v1_config()
     tk = dict(velocity_damping=0.9)
@@ -75,14 +71,13 @@ def main():
     if args.online:
         cfg = cfg.replace(online=True)
 
-    gmap = mixture.load(
-        synthetic.V1_GMM, pad_to=cfg.caps.gmm_components_pad,
-        neighbor_dist_thresh=cfg.gmm.neighbor_dist_thresh,
-        neighbor_cap=cfg.gmm.neighbor_cap,
-    )
+    means, covs, trajectory = synthetic.load_map_and_trajectory(
+        args.map, args.seq, args.start + args.warm + args.frames,
+        seed=args.seed)
+    gmap = mixture.for_config(means, covs, cfg)
     fe, ts, q_wc, t_wc = synthetic.make_sequence(
-        cfg, gt_path=f"{synthetic.GT_DIR}/{args.seq}.txt",
-        gmm_path=synthetic.V1_GMM, n_landmarks=30000, seed=0,
+        cfg, gmm=(means, covs), trajectory=trajectory,
+        n_landmarks=30000, seed=0,
         disp_noise=0.1, pixel_noise=0.25, drop_frac=0.1,
     )
     N = args.warm + args.frames

@@ -6,8 +6,8 @@ merges per-host results into summary.json and reports the scaling
 numbers. Single-box testing: `--spawn N` forks N local worker processes
 wired through the same jax.distributed contract (CPU backend).
 
-  python tools/sweep_multihost.py --spawn 2 --seqs V1_01_easy,V1_02_medium \
-      --runs 1 --frames 200 --out /tmp/mh
+  python tools/sweep_multihost.py --map DIR --spawn 2 \
+      --seqs V1_01_easy,V1_02_medium --runs 1 --frames 200 --out mh_out
 
 Real deployment: run the same script once per host with
 GMMLOC_COORDINATOR / GMMLOC_NUM_PROCESSES / GMMLOC_PROCESS_ID set.
@@ -23,9 +23,9 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from gmmloc_tpu.utils.tpuenv import ensure_fast_tpu_env
+from gmmloc.utils import jaxenv
 
-ensure_fast_tpu_env()
+jaxenv.setup_compile_cache()
 
 ALL_SEQS = [
     "V1_01_easy", "V1_02_medium", "V1_03_difficult",
@@ -34,14 +34,14 @@ ALL_SEQS = [
 
 
 def worker(args) -> None:
-    from gmmloc_tpu.parallel import distributed as dist
+    from gmmloc.parallel import distributed as dist
 
     pid, nproc = dist.init_distributed()
     import numpy as np
 
-    from gmmloc_tpu.config import euroc_v1_config
-    from gmmloc_tpu.eval import synthetic
-    from gmmloc_tpu.gmm import mixture
+    from gmmloc.config import euroc_v1_config
+    from gmmloc.eval import synthetic
+    from gmmloc.gmm import mixture
     from tools.evaluate import run_once
 
     seqs = args.seqs.split(",") if args.seqs != "all" else ALL_SEQS
@@ -52,19 +52,17 @@ def worker(args) -> None:
         tracking=dataclasses.replace(cfg.tracking, velocity_damping=0.9)
     )
 
-    gmaps = {}
+    sources = {}
     results = []
     t0 = time.time()
     for seq, r in mine:
-        gp = synthetic.V2_GMM if seq.startswith("V2") else synthetic.V1_GMM
-        if gp not in gmaps:
-            gmaps[gp] = mixture.load(
-                gp, pad_to=cfg.caps.gmm_components_pad,
-                neighbor_dist_thresh=cfg.gmm.neighbor_dist_thresh,
-                neighbor_cap=cfg.gmm.neighbor_cap,
-            )
+        if seq not in sources:
+            src = synthetic.load_map_and_trajectory(
+                args.map, seq, args.start + args.frames)
+            sources[seq] = (src, mixture.for_config(src[0], src[1], cfg))
+        src, gmap = sources[seq]
         out_path = os.path.join(args.out, f"{seq}{r}.txt")
-        m = run_once(cfg, seq, r, args.frames, args.start, gmaps[gp], out_path)
+        m = run_once(cfg, seq, r, args.frames, args.start, gmap, src, out_path)
         m["seq"], m["run"] = seq, r
         results.append(m)
         print(f"[host {pid}] {seq} run{r}: rmse={m['rmse']*100:.2f}cm "
@@ -112,7 +110,9 @@ def main():
     ap.add_argument("--runs", type=int, default=5)
     ap.add_argument("--frames", type=int, default=100000)
     ap.add_argument("--start", type=int, default=0)
-    ap.add_argument("--out", default="expr_mh")
+    ap.add_argument("--map", required=True,
+                    help="the EuRoC data directory (or 'room')")
+    ap.add_argument("--out", default="sweep_out")
     ap.add_argument("--port", type=int, default=9911)
     args = ap.parse_args()
     os.makedirs(args.out, exist_ok=True)
@@ -125,12 +125,12 @@ def main():
                 GMMLOC_COORDINATOR=f"127.0.0.1:{args.port}",
                 GMMLOC_NUM_PROCESSES=str(args.spawn),
                 GMMLOC_PROCESS_ID=str(i),
-                JAX_PLATFORMS_OVERRIDE="cpu",
+                JAX_PLATFORMS="cpu",
             )
             cmd = [sys.executable, "-u", __file__, "--spawn", "0",
                    "--seqs", args.seqs, "--runs", str(args.runs),
                    "--frames", str(args.frames), "--start", str(args.start),
-                   "--out", args.out]
+                   "--out", args.out, "--map", args.map]
             procs.append(subprocess.Popen(cmd, env=env))
         rc = 0
         for p in procs:

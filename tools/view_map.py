@@ -1,7 +1,7 @@
 """Export the interactive HTML map viewer from a checkpoint.
 
 Usage:
-  python tools/view_map.py <checkpoint.npz> [--gmm v1|v2|/path.gmm]
+  python tools/view_map.py <checkpoint.npz> [--gmm room|/path.gmm]
                            [--out map.html]
 
 Viewer parity for the reference's live visualizer (visualizer.cpp) over
@@ -19,18 +19,19 @@ import jax
 
 jax.config.update("jax_platforms", "cpu")  # pure host tool
 
-from gmmloc_tpu.config import euroc_v1_config
-from gmmloc_tpu.eval import synthetic
-from gmmloc_tpu.mapping.map_state import MapState
-from gmmloc_tpu.pipeline import checkpoint, html_viewer
-from gmmloc_tpu.utils import proto
+from gmmloc.config import euroc_v1_config
+from gmmloc.eval import synthetic
+from gmmloc.mapping.map_state import MapState
+from gmmloc.pipeline import checkpoint, html_viewer
+from gmmloc.utils import proto
 
 
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("ckpt")
     ap.add_argument("--gmm", default=None,
-                    help="v1 | v2 | path to a .gmm proto stream")
+                    help="path to a .gmm proto stream, or 'room' for the "
+                         "seeded room's map")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
 
@@ -40,10 +41,10 @@ def main():
 
     gmm = None
     if args.gmm:
-        path = {"v1": synthetic.V1_GMM, "v2": synthetic.V2_GMM}.get(
-            args.gmm, args.gmm
-        )
-        means, covs, _, _ = proto.load_gmm_file(path)
+        if args.gmm == "room":
+            means, covs = synthetic.room_gmm()
+        else:
+            means, covs, _, _ = proto.load_gmm_file(args.gmm)
         gmm = {"means": means, "covs": covs}
 
     out = args.out or os.path.splitext(args.ckpt)[0] + ".html"
